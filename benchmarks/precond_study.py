@@ -21,13 +21,17 @@ bands(Pinv) + extra S applies) block-matvec units; the table reports raw
 iterations AND matvec-unit-weighted cost relative to stair, which is what
 survives on hardware where the iteration is bandwidth/latency bound.
 
-Usage: PYTHONPATH=/root/repo JAX_PLATFORMS=cpu python benchmarks/precond_study.py
+Usage: JAX_PLATFORMS=cpu python benchmarks/precond_study.py
 """
 
 import argparse
 import json
+import sys
+from pathlib import Path
 
 import numpy as np
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 
 def main():
@@ -39,12 +43,15 @@ def main():
 
     import jax.numpy as jnp
 
-    from mpcgpu_tpu.config import CostConfig
-    from mpcgpu_tpu.models import iiwa14
-    from mpcgpu_tpu.ops.pcg import pcg_solve
-    from mpcgpu_tpu.ops.schur import form_schur_system
-    from mpcgpu_tpu.solver.kkt import build_kkt
-    from mpcgpu_tpu.utils.trajfiles import load_eepos_traj, load_xu_traj
+    from mpcgpu.config import CostConfig
+    from mpcgpu.models import iiwa14
+    from mpcgpu.ops.pcg import pcg_solve
+    from mpcgpu.ops.schur import form_schur_system
+    from mpcgpu.solver.kkt import build_kkt
+    from mpcgpu.utils.compile_cache import enable_compile_cache
+    from mpcgpu.utils.trajfiles import load_eepos_traj, load_xu_traj
+
+    enable_compile_cache()
 
     dtype = jnp.float32
     model = iiwa14(dtype=dtype)

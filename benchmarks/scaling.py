@@ -8,10 +8,9 @@ count the mesh supports, and reports per-iteration throughput
 (nnz processed per second) plus scaling efficiency vs 1 shard.
 
 On the virtual CPU mesh (XLA_FLAGS=--xla_force_host_platform_device_count=N,
-JAX_PLATFORMS=cpu) the numbers validate the COMMUNICATION LOGIC and surface
-collective overheads, standing in for the >= 80% multi-host ICI target
-(BASELINE.json configs[4]) until a pod is available; on real hardware the
-same script measures the true scaling curve.
+JAX_PLATFORMS=cpu) the run validates the communication logic only; on GPUs
+joined by NVLink the same script measures the scaling curve (BASELINE.json
+configs[4] sets a >= 80% efficiency target).
 
 Timing: a fixed-iteration solve (exit_tol=0 so no early exit) chained
 ``reps`` times; median wall over the chain / iterations.
@@ -24,84 +23,6 @@ import time
 import numpy as np
 
 
-def batched_scaling(args):
-    """Weak-scaling solves/s of the instance-sharded gridded fused pipeline
-    (parallel/batched_fused.sqp_solve_batched_fused_sharded): B = per-device
-    batch x devices, pure data parallel (zero collectives), so efficiency
-    should stay ~1.0 — the multi-host form of BASELINE's >= 80% batched-MPC
-    scaling target."""
-    import jax
-    import jax.numpy as jnp
-
-    from mpcgpu_tpu.config import CostConfig, PCGConfig, SQPConfig
-    from mpcgpu_tpu.models import iiwa14
-    from mpcgpu_tpu.parallel.batched_fused import (
-        sqp_solve_batched_fused_sharded)
-    from mpcgpu_tpu.parallel.mesh import make_mesh
-    from mpcgpu_tpu.utils.trajfiles import load_eepos_traj, load_xu_traj
-
-    N = args.knots if args.knots <= 128 else 32
-    dtype = jnp.float32
-    model = iiwa14(dtype=dtype)
-    cost = CostConfig.for_knots(N)
-    xu0 = jnp.asarray(load_xu_traj("0_0")[:N], dtype)
-    ee0 = jnp.asarray(load_eepos_traj("0_0")[:N], dtype)
-    scfg = SQPConfig(max_iter=2)
-    # exit_tol=0: every instance runs the full fixed iteration budget so the
-    # measured work is identical per instance across device counts
-    pcfg = PCGConfig(max_iter=40, exit_tol=0.0)
-
-    n_avail = len(jax.devices())
-    counts = (1, 2, 4, 8, 16)
-    if jax.default_backend() != "tpu":
-        # interpret-mode gridded kernels cost seconds per solve on the CPU
-        # mesh; two device counts validate the sharding logic (equality vs
-        # unsharded is tested in tests/test_batched_fused.py)
-        counts = (1, 2)
-    rows = []
-    base_rate = None
-    for d in counts:
-        if d > n_avail:
-            break
-        B = args.batch_per_device * d
-        key = jax.random.PRNGKey(0)
-        xu_b = xu0[None] + 0.01 * jax.random.normal(key, (B, N, 21), dtype)
-        ee_b = jnp.broadcast_to(ee0, (B, N, 6))
-        xs_b = xu_b[:, 0, :14]
-        lam_b = jnp.zeros((B, N, 14), dtype)
-        rho_b = jnp.full((B,), 1e-3, dtype)
-        mesh = make_mesh(n_instance=d, n_knot=1)
-
-        # jit the call site: called eagerly, the shard_map entry re-traces
-        # the whole gridded pipeline EVERY call (~seconds — measured round 5)
-        run = jax.jit(lambda xu, lam, xs, ee, rho:
-                      sqp_solve_batched_fused_sharded(
-                          model, cost, scfg, pcfg, xu, lam, xs, ee, rho,
-                          1.0 / 64.0, mesh))
-
-        jax.block_until_ready(run(xu_b, lam_b, xs_b, ee_b, rho_b).xu)
-        samples = []
-        for _ in range(args.reps):
-            t0 = time.perf_counter()
-            jax.block_until_ready(run(xu_b, lam_b, xs_b, ee_b, rho_b).xu)
-            samples.append(time.perf_counter() - t0)
-        rate = B / float(np.median(samples))       # solves/s
-        if base_rate is None:
-            base_rate = rate
-        eff = rate / (base_rate * d)
-        rows.append(dict(devices=d, batch=B,
-                         solves_per_s=round(rate, 1),
-                         efficiency_vs_1dev=round(eff, 3)))
-        print(json.dumps(rows[-1]))
-
-    import jax as _jax
-
-    print(json.dumps(dict(metric="batched_fused_instance_scaling", knots=N,
-                          batch_per_device=args.batch_per_device,
-                          sqp_iters=2, pcg_iters_fixed=40,
-                          backend=_jax.default_backend(), table=rows)))
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--knots", type=int, default=512)
@@ -109,33 +30,25 @@ def main():
                     help="fixed PCG iteration count (tuned cap for N=512)")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--method", default="pipelined",
-                    choices=["pipelined", "pipelined_slab", "classic"],
+                    choices=["pipelined", "classic", "ca"],
                     help="sharded CG formulation (parallel/pcg_sharded.py): "
-                    "pipelined = 1 psum + 1 halo exchange per iteration; "
-                    "pipelined_slab = same collectives, per-shard compute "
-                    "in one Pallas kernel per iteration")
-    ap.add_argument("--batched", action="store_true",
-                    help="instead of knot-sharded PCG, measure the "
-                    "instance-sharded gridded fused pipeline: solves/s vs "
-                    "devices, weak scaling (VERDICT r3 item 6)")
-    ap.add_argument("--batch-per-device", type=int, default=16)
+                    "pipelined = 1 psum + 1 halo exchange per iteration")
     args = ap.parse_args()
-
-    if args.batched:
-        return batched_scaling(args)
 
     import jax
     import jax.numpy as jnp
 
-    from mpcgpu_tpu.config import CostConfig
-    from mpcgpu_tpu.models import iiwa14
-    from mpcgpu_tpu.ops.csr import btd_nnz_lower
-    from mpcgpu_tpu.ops.schur import form_schur_system
-    from mpcgpu_tpu.parallel.mesh import make_mesh
-    from mpcgpu_tpu.parallel.pcg_sharded import pcg_solve_sharded
-    from mpcgpu_tpu.solver.kkt import build_kkt
-    from mpcgpu_tpu.utils.trajfiles import load_eepos_traj, load_xu_traj
+    from mpcgpu.config import CostConfig
+    from mpcgpu.models import iiwa14
+    from mpcgpu.ops.csr import btd_nnz_lower
+    from mpcgpu.ops.schur import form_schur_system
+    from mpcgpu.parallel.mesh import make_mesh
+    from mpcgpu.parallel.pcg_sharded import pcg_solve_sharded
+    from mpcgpu.solver.kkt import build_kkt
+    from mpcgpu.utils.compile_cache import enable_compile_cache
+    from mpcgpu.utils.trajfiles import load_eepos_traj, load_xu_traj
 
+    enable_compile_cache()
     N = args.knots
     n = 14
     dtype = jnp.float32
@@ -184,7 +97,8 @@ def main():
 
     print(json.dumps(dict(metric="pcg_sharded_scaling", knots=N,
                           method=args.method,
-                          backend=jax.default_backend(), nnz=nnz,
+                          platform=jax.devices()[0].platform,
+                          kind=jax.devices()[0].device_kind, nnz=nnz,
                           table=rows)))
 
 

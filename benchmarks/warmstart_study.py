@@ -12,11 +12,15 @@ cutting the rnorm-primary headline if it works.  This script measures mean
 live PCG iterations and final merit over a warm MPC chain for beta in
 {0 (reference), 0.5, 1.0}.
 
-Usage: PYTHONPATH=/root/repo JAX_PLATFORMS=cpu python benchmarks/warmstart_study.py
+Usage: JAX_PLATFORMS=cpu python benchmarks/warmstart_study.py
 """
 
 import argparse
 import json
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 
 def main():
@@ -33,10 +37,13 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from mpcgpu_tpu.config import CostConfig, PCGConfig, SQPConfig
-    from mpcgpu_tpu.models import iiwa14
-    from mpcgpu_tpu.solver.sqp import sqp_solve
-    from mpcgpu_tpu.utils.trajfiles import load_eepos_traj, load_xu_traj
+    from mpcgpu.config import CostConfig, PCGConfig, SQPConfig
+    from mpcgpu.models import iiwa14
+    from mpcgpu.solver.sqp import sqp_solve
+    from mpcgpu.utils.compile_cache import enable_compile_cache
+    from mpcgpu.utils.trajfiles import load_eepos_traj, load_xu_traj
+
+    enable_compile_cache()
 
     N = args.knots
     dtype = jnp.float32

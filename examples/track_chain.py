@@ -16,6 +16,10 @@ Usage: python examples/track_chain.py [--nq 5] [--knots 16] [--steps 120]
 """
 
 import argparse
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import numpy as np
 
@@ -36,19 +40,23 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from mpcgpu_tpu.config import CostConfig, PCGConfig, SimConfig, SQPConfig
-    from mpcgpu_tpu.models import dynamics
-    from mpcgpu_tpu.models.chain import planar_arm
-    from mpcgpu_tpu.sim.mpc import simulate_mpc, simulate_mpc_ondevice
+    from mpcgpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
+    from mpcgpu.config import CostConfig, PCGConfig, SimConfig, SQPConfig
+    from mpcgpu.models import dynamics
+    from mpcgpu.models.chain import planar_arm
+    from mpcgpu.sim.mpc import simulate_mpc, simulate_mpc_ondevice
 
     if args.urdf == "builtin:iiwa":
-        from mpcgpu_tpu.models import iiwa14
-        from mpcgpu_tpu.models.urdf import export_urdf, load_urdf
+        from mpcgpu.models import iiwa14
+        from mpcgpu.models.urdf import export_urdf, load_urdf
 
         model = load_urdf(export_urdf(iiwa14()))
         print("onboarded IIWA-14 via export_urdf -> load_urdf round trip")
     elif args.urdf is not None:
-        from mpcgpu_tpu.models.urdf import load_urdf
+        from mpcgpu.models.urdf import load_urdf
 
         model = load_urdf(args.urdf)
         print(f"onboarded {model.nq}-joint robot from {args.urdf}")

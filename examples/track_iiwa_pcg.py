@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """IIWA end-effector tracking with the PCG linear-system solver.
 
-TPU-native counterpart of examples/track_iiwa_pcg.cu: loads the recorded
+The counterpart of examples/track_iiwa_pcg.cu: loads the recorded
 start/goal trajectory pair, sweeps PCG exit tolerances, runs the closed-loop
 MPC tracker, and writes per-run .result files plus an `_overall_stats.csv`
 (track_iiwa_pcg.cu:39-175).
@@ -10,14 +10,19 @@ Usage:  python examples/track_iiwa_pcg.py [--knots 32] [--steps 200] [--save]
 """
 
 import argparse
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax.numpy as jnp
 
-from mpcgpu_tpu.config import PCGConfig, SimConfig, SQPConfig
-from mpcgpu_tpu.models import iiwa14
-from mpcgpu_tpu.sim.mpc import simulate_mpc
-from mpcgpu_tpu.utils.experiment import dump_tracking_data, print_stats, write_overall_stats_csv
-from mpcgpu_tpu.utils.trajfiles import load_eepos_traj, load_xu_traj
+from mpcgpu.config import PCGConfig, SimConfig, SQPConfig
+from mpcgpu.models import iiwa14
+from mpcgpu.sim.mpc import simulate_mpc
+from mpcgpu.utils.compile_cache import enable_compile_cache
+from mpcgpu.utils.experiment import dump_tracking_data, print_stats, write_overall_stats_csv
+from mpcgpu.utils.trajfiles import load_eepos_traj, load_xu_traj
 
 # reference tolerance sweeps (track_iiwa_pcg.cu:46-73)
 TOL_SWEEP = {
@@ -46,8 +51,8 @@ def main():
     ap.add_argument("--outdir", default="results")
     ap.add_argument("--verbose", action="store_true")
     ap.add_argument("--linsys", default="auto",
-                    help="with --ondevice: linear solver (auto, pcg, "
-                    "pcg_pallas, ldl, pcr, pcr_pallas, qdldl_host)")
+                    help="linear solver (auto = the platform's default, pcg, "
+                    "pcg_pallas, ldl, pcr, qdldl_host)")
     ap.add_argument("--knot-shards", type=int, default=0,
                     help="with --ondevice: run every solve knot-sharded SPMD "
                     "over this many devices (parallel/sqp_sharded.py)")
@@ -67,6 +72,7 @@ def main():
                     help="stream the measured state every control step "
                          "(LIVE_PRINT_PATH, settings.cuh:20-26)")
     args = ap.parse_args()
+    enable_compile_cache()
 
     model = iiwa14(dtype=jnp.float32)
     if args.grid:
@@ -95,14 +101,13 @@ def main():
         import jax
         import numpy as np
 
-        from mpcgpu_tpu.sim.mpc import simulate_mpc_ondevice
+        from mpcgpu.sim.mpc import simulate_mpc_ondevice
 
         mesh_kw = {}
         if args.knot_shards:
-            from mpcgpu_tpu.parallel.mesh import make_mesh
+            from mpcgpu.parallel.mesh import make_mesh
 
-            mesh_kw = dict(knot_mesh=make_mesh(1, args.knot_shards),
-                           pcg_method="pipelined_slab")
+            mesh_kw = dict(knot_mesh=make_mesh(1, args.knot_shards))
         tols = args.tols or [1e-5]
         for tol in tols:
             scfg = SQPConfig(max_iter=2, max_time_us=None)
@@ -148,7 +153,7 @@ def main():
                                       forcing=args.forcing),
                     sim_cfg=SimConfig(remove_jitters=args.remove_jitters,
                                       live_print_path=args.live_print_path),
-                    linsys="pcg",
+                    linsys=args.linsys,
                     verbose=args.verbose,
                 )
                 s = stats.summary()

@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
 """IIWA end-effector tracking with the direct LDL^T linear-system solver.
 
-TPU-native counterpart of examples/track_iiwa_qdldl.cu: identical pipeline to
+The counterpart of examples/track_iiwa_qdldl.cu: identical pipeline to
 the PCG driver with the linear solve swapped for the block-tridiagonal LDL^T
 factorization (the reference's qdldl path, include/qdldl/sqp.cuh; exit_tol is
 the -1 sentinel there, track_iiwa_qdldl.cu:44).
 """
 
 import argparse
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax.numpy as jnp
 
-from mpcgpu_tpu.config import SimConfig, SQPConfig
-from mpcgpu_tpu.models import iiwa14
-from mpcgpu_tpu.sim.mpc import simulate_mpc
-from mpcgpu_tpu.utils.experiment import dump_tracking_data, print_stats, write_overall_stats_csv
-from mpcgpu_tpu.utils.trajfiles import load_eepos_traj, load_xu_traj
+from mpcgpu.config import SimConfig, SQPConfig
+from mpcgpu.models import iiwa14
+from mpcgpu.sim.mpc import simulate_mpc
+from mpcgpu.utils.compile_cache import enable_compile_cache
+from mpcgpu.utils.experiment import dump_tracking_data, print_stats, write_overall_stats_csv
+from mpcgpu.utils.trajfiles import load_eepos_traj, load_xu_traj
 
 
 def main():
@@ -31,12 +36,13 @@ def main():
     ap.add_argument("--outdir", default="results")
     ap.add_argument("--verbose", action="store_true")
     ap.add_argument("--linsys", default="ldl",
-                    choices=["ldl", "pcr", "pcr_pallas", "qdldl_host"],
+                    choices=["ldl", "pcr", "qdldl_host"],
                     help="direct solver: 'ldl' = on-device block LDL^T "
                     "(default; no per-iteration D2H), 'qdldl_host' = the "
                     "reference's literal host factor/solve round-trip "
                     "(qdldl/sqp.cuh:268-273)")
     args = ap.parse_args()
+    enable_compile_cache()
 
     model = iiwa14(dtype=jnp.float32)
     traj_names = ([f"{i % 5}_{i // 5}" for i in range(25)

@@ -1,7 +1,9 @@
 """Test configuration: run everything on a virtual 8-device CPU mesh.
 
-Multi-chip sharding logic is unit-testable without a pod via
-xla_force_host_platform_device_count (SURVEY.md section 4).
+Multi-device sharding logic is unit-testable without several GPUs via
+xla_force_host_platform_device_count (SURVEY.md section 4).  Tests marked
+``gpu`` need the card; run them there with JAX_PLATFORMS=cuda,cpu, which
+this file then leaves in place.
 """
 
 import os
@@ -11,8 +13,9 @@ os.environ["XLA_FLAGS"] = (
 )
 
 import jax
+import pytest
 
-jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_platforms", os.environ.get("JAX_PLATFORMS") or "cpu")
 # oracle tests compare against float64 references; production arrays are
 # created explicitly float32, so enabling x64 here does not change them
 jax.config.update("jax_enable_x64", True)
@@ -36,31 +39,15 @@ jax.config.update("jax_enable_x64", True)
 # the base name).  New tests are quick by default — if one turns out slow,
 # add its name here.
 _SLOW_TESTS = {
-    "test_sqp_fused_dz_matches_split",
     "test_pipelined_closed_loop_exit_fidelity_rnorm",
-    "test_sharded_full_sqp_fused_matches_single_device",
-    "test_batched_fused_sharded_matches_unsharded",
-    "test_fused_kkt_schur_matches_xla",
-    "test_batched_fused_ondevice_scan_matches_vmap",
-    "test_pcg_dz_fused_epilogue_matches_split_kernels",
-    "test_pcr_pallas_sqp_path",
-    "test_fused_sqp_matches_unfused",
-    "test_fused_kkt_schur_launder_path_matches_xla",
-    "test_pcr_pallas_matches_xla",
     "test_batched_solver_matches_loop",
-    "test_batched_fused_sqp_matches_vmap",
     "test_eisenstat_walker_forcing",
-    "test_batched_kkt_schur_matches_unbatched",
     "test_ondevice_sim_adaptive_knot_sharded_matches_single_device",
-    "test_stair2_with_pcg_pallas_falls_back_to_xla_pcg",
     "test_ondevice_batched_sim_instance_sharded_matches_unsharded",
     "test_qdldl_host_matches_ondevice_ldl_closed_loop",
     "test_batched_ondevice_sim",
-    "test_slab_kernel_matches_full_kernel",
-    "test_kkt_pallas_wrap_matches_xla",
     "test_sharded_full_sqp_other_preconditioners",
     "test_pcg_and_ldl_paths_agree",
-    "test_matches_xla_build_kkt",
     "test_gspmd_sharded_batched_solve_runs",
     "test_sharded_full_sqp_matches_single_device",
     "test_ondevice_sim_knot_sharded_matches_single_device",
@@ -75,7 +62,6 @@ _SLOW_TESTS = {
     "test_sharded_full_sqp_iter_budget",
     "test_ondevice_sim_matches_host_loop",
     "test_sharded_pcg_pipelined_exit_criteria",
-    "test_merit_pallas_wrap_matches_xla",
     "test_ondevice_adaptive_frequency_sim",
     "test_pcr_exact_f64",
     "test_sharded_pcg_matches_single_device",
@@ -86,6 +72,13 @@ _SLOW_TESTS = {
     "test_sharded_pcg_pipelined_collective_budget",
     "test_joint_mode_sqp_regulates_to_reference",
     "test_closed_loop_tracking_short",
+    "test_kernel_exit_semantics_on_iiwa_schur",
+    "test_kernel_matches_pcg_solve_on_iiwa_schur",
+    "test_line_search_merits_match_loop_and_f64",
+    "test_schur_and_dz_f32_match_f64",
+    "test_kkt_f32_matches_f64",
+    "test_sqp_with_pcg_kernel_matches_xla_pcg",
+    "test_stair2_with_pcg_pallas_falls_back_to_xla_pcg",
 }
 
 
@@ -96,3 +89,26 @@ def pytest_collection_modifyitems(config, items):
         base = item.name.split("[")[0]
         if base not in _SLOW_TESTS:
             item.add_marker(_pytest.mark.quick)
+
+
+@pytest.fixture
+def on_gpu(monkeypatch):
+    """Run the code as it runs on a GPU, with the PCG kernel interpreted:
+    ``mpcgpu.device`` reports "gpu" and the kernel wrapper gets
+    interpret=True."""
+    import functools
+
+    from mpcgpu import device
+    from mpcgpu.ops import pcg_pallas
+
+    monkeypatch.setattr(device, "platform", lambda: "gpu")
+    monkeypatch.setattr(pcg_pallas, "pcg_solve_pallas", functools.partial(
+        pcg_pallas.pcg_solve_pallas, interpret=True))
+
+
+@pytest.fixture
+def gpu():
+    """For tests that need the card: skip where JAX's default device is not
+    a GPU.  Decided here, at run time, never while collecting."""
+    if jax.devices()[0].platform != "gpu":
+        pytest.skip("needs a GPU (run on the card: pytest -m gpu)")

@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mpcgpu_tpu.config import CostConfig
-from mpcgpu_tpu.models import iiwa14
-from mpcgpu_tpu.solver.kkt import (
+from mpcgpu.config import CostConfig
+from mpcgpu.models import iiwa14
+from mpcgpu.solver.kkt import (
     _WRAP_PI, angle_wrap, build_kkt, integrator_step)
-from mpcgpu_tpu.solver.merit import line_search_merits
+from mpcgpu.solver.merit import line_search_merits
 
 
 def test_angle_wrap_formula():
@@ -72,32 +72,37 @@ def test_build_kkt_wrap_changes_defect_only():
                                rtol=1e-5, atol=1e-6)
 
 
-def test_kkt_pallas_wrap_matches_xla():
-    from mpcgpu_tpu.solver.kkt_pallas import build_kkt_pallas
-
-    model, cost, xu, xs, ee = _problem(seed=2)
+def test_kkt_wrap_f32_matches_f64():
+    """The wrapped defect in f32 against the same assembly in f64."""
     dt = 1.0 / 64
-    ref = build_kkt(model, cost, xu, xs, ee, dt, angle_wrap=True)
-    got = build_kkt_pallas(model, cost, xu, xs, ee, dt, interpret=True,
-                           angle_wrap=True)
-    np.testing.assert_allclose(np.asarray(got.c), np.asarray(ref.c),
+    out = {}
+    for dtype in (jnp.float32, jnp.float64):
+        model, cost, xu, xs, ee = _problem(seed=2)
+        model = iiwa14(dtype=dtype)
+        out[dtype] = build_kkt(model, cost, xu.astype(dtype), xs.astype(dtype),
+                               ee.astype(dtype), dt, angle_wrap=True)
+    np.testing.assert_allclose(np.asarray(out[jnp.float32].c),
+                               np.asarray(out[jnp.float64].c),
                                rtol=1e-4, atol=1e-5)
 
 
-def test_merit_pallas_wrap_matches_xla():
-    from mpcgpu_tpu.solver.merit_pallas import line_search_merits_pallas
+def test_merit_wrap_matches_per_alpha_oracle():
+    """line_search_merits(angle_wrap=True) equals the merit of each
+    candidate with the wrapped integrator, one alpha at a time, and the
+    wrap really changes the merits near +-pi."""
+    from mpcgpu.solver.merit import merit_function
 
     model, cost, xu, xs, ee = _problem(seed=3)
     dt = 1.0 / 64
     rng = np.random.default_rng(4)
     dz = jnp.asarray(0.1 * rng.standard_normal(xu.shape), jnp.float32)
     mu = jnp.float32(10.0)
-    ref, _ = line_search_merits(model, cost, xu, dz, xs, ee, mu, dt,
-                                include_zero=True, angle_wrap=True)
-    got, _ = line_search_merits_pallas(model, cost, xu, dz, xs, ee, mu, dt,
-                                       interpret=True, angle_wrap=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                               rtol=2e-4, atol=1e-4)
+    got, alphas = line_search_merits(model, cost, xu, dz, xs, ee, mu, dt,
+                                     include_zero=True, angle_wrap=True)
+    want = [merit_function(model, cost, xu + a * dz, xs, ee, mu, dt,
+                           include_x0=True, angle_wrap=True)
+            for a in np.asarray(alphas)]
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-6)
     plain, _ = line_search_merits(model, cost, xu, dz, xs, ee, mu, dt,
                                   include_zero=True)
-    assert not np.allclose(np.asarray(ref), np.asarray(plain))
+    assert not np.allclose(np.asarray(got), np.asarray(plain))

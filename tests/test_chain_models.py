@@ -11,8 +11,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mpcgpu_tpu.models import dynamics
-from mpcgpu_tpu.models.chain import planar_arm
+from mpcgpu.models import dynamics
+from mpcgpu.models.chain import planar_arm
 
 jax.config.update("jax_enable_x64", True)
 
@@ -67,10 +67,11 @@ def test_fk_matches_planar_geometry():
     np.testing.assert_allclose(ee, [x, y, 0.0], atol=1e-12)
 
 
-def test_full_sqp_on_three_link_arm():
-    """The whole solver stack is nq-generic (pallas kernels in interpret)."""
-    from mpcgpu_tpu.config import CostConfig, PCGConfig, SQPConfig
-    from mpcgpu_tpu.solver.sqp import sqp_solve
+def test_full_sqp_on_three_link_arm(on_gpu):
+    """The whole solver stack is nq-generic: the XLA path, and the GPU path
+    with the PCG kernel interpreted (n = 6 blocks padded to 8)."""
+    from mpcgpu.config import CostConfig, PCGConfig, SQPConfig
+    from mpcgpu.solver.sqp import sqp_solve
 
     model = planar_arm(nq=3)
     N = 16
@@ -97,7 +98,7 @@ def test_full_sqp_on_three_link_arm():
     res_pal = sqp_solve(model, cost, SQPConfig(max_iter=12),
                         PCGConfig(max_iter=60, exit_tol=1e-8),
                         xu, lam, xs, ee_goal, 1e-3, 1 / 32.0,
-                        linsys="pcg_pallas", merit_impl="pallas")
+                        linsys="pcg_pallas")
     # separate compilations of the same f32 math, 12 iterations deep
     np.testing.assert_allclose(np.asarray(res_pal.xu), np.asarray(res_xla.xu),
                                rtol=2e-3, atol=1e-3)

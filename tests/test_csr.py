@@ -3,7 +3,7 @@
 
 import numpy as np
 
-from mpcgpu_tpu.ops.csr import btd_lower_csc_pattern, btd_lower_csc_values, btd_nnz_lower
+from mpcgpu.ops.csr import btd_lower_csc_pattern, btd_lower_csc_values, btd_nnz_lower
 
 
 def test_lower_csc_roundtrip():
@@ -46,13 +46,13 @@ def test_csr_feeds_direct_solver_cross_check():
     import scipy.sparse as sp
     import scipy.sparse.linalg as spla
 
-    from mpcgpu_tpu.config import CostConfig
-    from mpcgpu_tpu.models import iiwa14
-    from mpcgpu_tpu.ops.ldl import btd_ldl_solve
-    from mpcgpu_tpu.ops.pcg import pcg_solve
-    from mpcgpu_tpu.ops.schur import form_schur_system
-    from mpcgpu_tpu.solver.kkt import build_kkt
-    from mpcgpu_tpu.utils.trajfiles import load_eepos_traj, load_xu_traj
+    from mpcgpu.config import CostConfig
+    from mpcgpu.models import iiwa14
+    from mpcgpu.ops.ldl import btd_ldl_solve
+    from mpcgpu.ops.pcg import pcg_solve
+    from mpcgpu.ops.schur import form_schur_system
+    from mpcgpu.solver.kkt import build_kkt
+    from mpcgpu.utils.trajfiles import load_eepos_traj, load_xu_traj
 
     N, n = 12, 14
     model = iiwa14(dtype=jnp.float32)
@@ -88,7 +88,7 @@ def test_upper_csc_roundtrip():
     """qdldl input orientation (upper CSC = the reference's lower CSR,
     csr.cuh:40-74): pattern/value packing reconstructs the dense upper
     triangle."""
-    from mpcgpu_tpu.ops.csr import btd_upper_csc_pattern, btd_upper_csc_values
+    from mpcgpu.ops.csr import btd_upper_csc_pattern, btd_upper_csc_values
 
     N, n = 6, 4
     rng = np.random.default_rng(1)
@@ -121,7 +121,7 @@ def test_sparse_ldl_random_quasidefinite():
     """The native elimination-tree LDL^T (QDLDL_etree/factor/solve
     equivalent, qdldl/sqp.cuh:22-49) on a random sparse quasi-definite
     matrix, vs dense numpy."""
-    from mpcgpu_tpu.native import SparseLDL
+    from mpcgpu.native import SparseLDL
 
     rng = np.random.default_rng(2)
     dim = 40
@@ -157,13 +157,13 @@ def test_csr_feeds_real_qdldl_equivalent():
     import jax
     import jax.numpy as jnp
 
-    from mpcgpu_tpu.config import CostConfig
-    from mpcgpu_tpu.models import iiwa14
-    from mpcgpu_tpu.native import qdldl_solve_schur
-    from mpcgpu_tpu.ops.ldl import btd_ldl_solve
-    from mpcgpu_tpu.ops.schur import form_schur_system
-    from mpcgpu_tpu.solver.kkt import build_kkt
-    from mpcgpu_tpu.utils.trajfiles import load_eepos_traj, load_xu_traj
+    from mpcgpu.config import CostConfig
+    from mpcgpu.models import iiwa14
+    from mpcgpu.native import qdldl_solve_schur
+    from mpcgpu.ops.ldl import btd_ldl_solve
+    from mpcgpu.ops.schur import form_schur_system
+    from mpcgpu.solver.kkt import build_kkt
+    from mpcgpu.utils.trajfiles import load_eepos_traj, load_xu_traj
 
     N, n = 12, 14
     model = iiwa14(dtype=jnp.float32)
@@ -181,7 +181,7 @@ def test_csr_feeds_real_qdldl_equivalent():
     # dense oracle built from the SAME packed values the factorization saw
     # (the upper-CSC packing implicitly symmetrizes theta blocks whose f32
     # asymmetry is ~1e-7 relative)
-    from mpcgpu_tpu.ops.csr import btd_upper_csc_pattern, btd_upper_csc_values
+    from mpcgpu.ops.csr import btd_upper_csc_pattern, btd_upper_csc_values
 
     dim = N * n
     col_ptr, row_ind = btd_upper_csc_pattern(n, N)

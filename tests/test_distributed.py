@@ -1,6 +1,6 @@
 """Two-process jax.distributed CPU test of parallel/distributed.py.
 
-The DCN/host-aligned-mesh path (initialize_distributed +
+The multi-host/host-aligned-mesh path (initialize_distributed +
 make_host_aligned_mesh) previously had zero executions anywhere; this spawns
 two REAL processes wired through jax.distributed.initialize on localhost and
 runs one knot-sharded PCG solve across them (the multi-host layout of
@@ -24,7 +24,7 @@ os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
 import jax
 jax.config.update("jax_platforms", "cpu")
 
-from mpcgpu_tpu.parallel.distributed import (initialize_distributed,
+from mpcgpu.parallel.distributed import (initialize_distributed,
                                              make_host_aligned_mesh)
 
 coord, nproc, pid = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
@@ -40,7 +40,7 @@ assert mesh.shape["knot"] == 2 and mesh.shape["instance"] == nproc
 # one sharded PCG solve on a small SPD block-tridiagonal system, identical
 # on every process (globally-replicated inputs -> globally-identical result)
 from jax.sharding import Mesh
-from mpcgpu_tpu.parallel.pcg_sharded import pcg_solve_sharded
+from mpcgpu.parallel.pcg_sharded import pcg_solve_sharded
 
 N, n = 8, 4
 rng = np.random.default_rng(0)
@@ -77,18 +77,18 @@ for shard in out.lam.addressable_shards:
     np.testing.assert_allclose(np.asarray(shard.data), ref[shard.index],
                                atol=1e-4)
 
-# the slab-kernel pipelined method (one Pallas kernel per CG iteration,
-# interpret mode on CPU) across REAL process boundaries: same collectives,
-# same answer (L = 2 rows per device)
+# the classic method (two halo exchanges and two dependent reductions per
+# CG iteration, against the default pipelined method's one of each) across
+# REAL process boundaries: same answer (L = 2 rows per device)
 out2 = pcg_solve_sharded(
     jnp.asarray(S, jnp.float32), jnp.asarray(Pinv, jnp.float32),
     jnp.asarray(gamma, jnp.float32), jnp.zeros((N, n), jnp.float32),
-    knot_mesh, max_iter=100, exit_tol=1e-10, method="pipelined_slab")
+    knot_mesh, max_iter=100, exit_tol=1e-10, method="classic")
 for shard in out2.lam.addressable_shards:
     np.testing.assert_allclose(np.asarray(shard.data), ref[shard.index],
                                atol=1e-4)
 print(f"proc {pid}: distributed pcg ok, iters={int(out.iters)} "
-      f"slab_iters={int(out2.iters)}", flush=True)
+      f"classic_iters={int(out2.iters)}", flush=True)
 """
 
 

@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mpcgpu_tpu.models import dynamics, iiwa14
-from mpcgpu_tpu.utils.trajfiles import load_eepos_traj, load_xu_traj
+from mpcgpu.models import dynamics, iiwa14
+from mpcgpu.utils.trajfiles import load_eepos_traj, load_xu_traj
 
 jax.config.update("jax_enable_x64", True)
 

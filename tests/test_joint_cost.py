@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mpcgpu_tpu.config import CostConfig, PCGConfig, SQPConfig
-from mpcgpu_tpu.models import iiwa14
-from mpcgpu_tpu.solver.kkt import tracking_cost_grad_hess
-from mpcgpu_tpu.solver.merit import tracking_cost
-from mpcgpu_tpu.solver.sqp import sqp_solve
+from mpcgpu.config import CostConfig, PCGConfig, SQPConfig
+from mpcgpu.models import iiwa14
+from mpcgpu.solver.kkt import tracking_cost_grad_hess
+from mpcgpu.solver.merit import tracking_cost
+from mpcgpu.solver.sqp import sqp_solve
 
 N = 16
 NX, NU = 14, 7

@@ -15,14 +15,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mpcgpu_tpu.config import CostConfig
-from mpcgpu_tpu.models import iiwa14
-from mpcgpu_tpu.ops.btd import btd_matvec, btd_to_dense
-from mpcgpu_tpu.ops.ldl import btd_ldl_solve
-from mpcgpu_tpu.ops.pcg import pcg_solve
-from mpcgpu_tpu.ops.schur import compute_dz, form_schur_system
-from mpcgpu_tpu.solver.kkt import build_kkt
-from mpcgpu_tpu.utils.trajfiles import load_eepos_traj, load_xu_traj
+from mpcgpu.config import CostConfig
+from mpcgpu.models import iiwa14
+from mpcgpu.ops.btd import btd_matvec, btd_to_dense
+from mpcgpu.ops.ldl import btd_ldl_solve
+from mpcgpu.ops.pcg import pcg_solve
+from mpcgpu.ops.schur import compute_dz, form_schur_system
+from mpcgpu.solver.kkt import build_kkt
+from mpcgpu.utils.trajfiles import load_eepos_traj, load_xu_traj
 
 jax.config.update("jax_enable_x64", True)
 

@@ -5,8 +5,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mpcgpu_tpu.ops.btd import btd_to_dense
-from mpcgpu_tpu.ops.ldl import btd_ldl_solve
+from mpcgpu.ops.btd import btd_to_dense
+from mpcgpu.ops.ldl import btd_ldl_solve
 
 
 def _system(N=24, n=14, seed=1):
@@ -24,7 +24,7 @@ def _system(N=24, n=14, seed=1):
 
 
 def test_native_matches_dense_and_jax():
-    from mpcgpu_tpu.native import btd_ldl_solve_cpu
+    from mpcgpu.native import btd_ldl_solve_cpu
 
     S, b = _system()
     x_native = btd_ldl_solve_cpu(S, b)

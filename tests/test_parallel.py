@@ -7,16 +7,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mpcgpu_tpu.config import CostConfig, PCGConfig, SQPConfig
-from mpcgpu_tpu.models import iiwa14
-from mpcgpu_tpu.ops.pcg import pcg_solve
-from mpcgpu_tpu.ops.schur import form_schur_system
-from mpcgpu_tpu.parallel.batched import make_batched_sqp_solver
-from mpcgpu_tpu.parallel.mesh import make_mesh, shard_batched_problem
-from mpcgpu_tpu.parallel.pcg_sharded import pcg_solve_sharded
-from mpcgpu_tpu.solver.kkt import build_kkt
-from mpcgpu_tpu.solver.sqp import sqp_solve
-from mpcgpu_tpu.utils.trajfiles import load_eepos_traj, load_xu_traj
+from mpcgpu.config import CostConfig, PCGConfig, SQPConfig
+from mpcgpu.models import iiwa14
+from mpcgpu.ops.pcg import pcg_solve
+from mpcgpu.ops.schur import form_schur_system
+from mpcgpu.parallel.batched import make_batched_sqp_solver
+from mpcgpu.parallel.mesh import make_mesh, shard_batched_problem
+from mpcgpu.parallel.pcg_sharded import pcg_solve_sharded
+from mpcgpu.solver.kkt import build_kkt
+from mpcgpu.solver.sqp import sqp_solve
+from mpcgpu.utils.trajfiles import load_eepos_traj, load_xu_traj
 
 N = 32
 NX = 14
@@ -72,7 +72,7 @@ def test_sharded_pcg_pipelined_matches_single_device():
 
 
 @pytest.mark.parametrize("criterion", ["eta", "rnorm"])
-@pytest.mark.parametrize("method", ["pipelined", "pipelined_slab"])
+@pytest.mark.parametrize("method", ["pipelined"])
 def test_sharded_pcg_pipelined_exit_criteria(criterion, method):
     model, cost, xu, xs, ee = _problem(dtype=jnp.float64)
     kkt = build_kkt(model, cost, xu, xs, ee, DT)
@@ -206,7 +206,7 @@ def _while_body_collective_counts(jaxpr):
 def test_sharded_pcg_pipelined_collective_budget():
     """Structural guarantee: the pipelined iteration issues exactly ONE psum
     and ONE bidirectional halo exchange (2 ppermutes); classic issues 2
-    psums + 4 ppermutes (VERDICT r2 item 2)."""
+    psums + 4 ppermutes."""
     model, cost, xu, xs, ee = _problem()
     kkt = build_kkt(model, cost, xu, xs, ee, DT)
     schur = form_schur_system(kkt, 1e-3)
@@ -225,18 +225,13 @@ def test_sharded_pcg_pipelined_collective_budget():
     piped = counts_for("pipelined")
     assert piped["psum"] == 1, piped
     assert piped["ppermute"] == 2, piped
-    # the slab-kernel variant must keep the SAME collective budget: the
-    # kernel replaces only the per-shard compute (VERDICT r3 item 2)
-    slab = counts_for("pipelined_slab")
-    assert slab["psum"] == 1, slab
-    assert slab["ppermute"] == 2, slab
     classic = counts_for("classic")
     assert classic["psum"] == 2, classic
     assert classic["ppermute"] == 4, classic
 
 
 def test_sharded_pcg_ca_collective_budget():
-    """The s-step methods issue 2 ppermutes + 1 psum per OUTER step — i.e.
+    """The s-step method issues 2 ppermutes + 1 psum per OUTER step — i.e.
     per s ITERATIONS, an s-fold collective reduction vs pipelined."""
     model, cost, xu, xs, ee = _problem()
     kkt = build_kkt(model, cost, xu, xs, ee, DT)
@@ -244,7 +239,7 @@ def test_sharded_pcg_ca_collective_budget():
     lam0 = jnp.zeros((N, NX), jnp.float32)
     mesh = make_mesh(n_instance=1, n_knot=2)
 
-    for method in ("ca", "ca_slab"):
+    for method in ("ca",):
         closed = jax.make_jaxpr(
             lambda S, P, g, l: pcg_solve_sharded(
                 S, P, g, l, mesh, max_iter=50, exit_tol=1e-6, method=method,
@@ -254,25 +249,6 @@ def test_sharded_pcg_ca_collective_budget():
         assert found, "no while loop found in jaxpr"
         assert found[0]["psum"] == 1, (method, found)
         assert found[0]["ppermute"] == 2, (method, found)
-
-
-def test_sharded_pcg_ca_slab_matches_ca():
-    """The kernel path (interpret mode on CPU) reproduces the XLA s-step
-    path bit-for-bit at the f64 level: same basis chains, same Gram, same
-    coefficient math."""
-    model, cost, xu, xs, ee = _problem(dtype=jnp.float64)
-    kkt = build_kkt(model, cost, xu, xs, ee, DT)
-    schur = form_schur_system(kkt, 1e-3)
-    lam0 = jnp.zeros((N, NX), jnp.float64)
-    mesh = make_mesh(n_instance=1, n_knot=2)
-    ca = pcg_solve_sharded(schur.S, schur.Pinv, schur.gamma, lam0, mesh,
-                           max_iter=60, exit_tol=0.0, method="ca", s_steps=4)
-    cas = pcg_solve_sharded(schur.S, schur.Pinv, schur.gamma, lam0, mesh,
-                            max_iter=60, exit_tol=0.0, method="ca_slab",
-                            s_steps=4)
-    assert int(ca.iters) == int(cas.iters) == 60
-    np.testing.assert_allclose(np.asarray(cas.lam), np.asarray(ca.lam),
-                               atol=1e-10)
 
 
 def test_batched_solver_matches_loop():
@@ -331,7 +307,7 @@ def test_gspmd_sharded_batched_solve_runs():
 def test_sharded_full_sqp_matches_single_device():
     """Knot-sharded FULL SQP iteration (KKT+Schur+PCG+dz+LS, all SPMD with
     halo exchanges) matches the single-device solver."""
-    from mpcgpu_tpu.parallel.sqp_sharded import sqp_solve_sharded
+    from mpcgpu.parallel.sqp_sharded import sqp_solve_sharded
 
     model, cost, xu, xs, ee = _problem()
     lam = jnp.zeros((N, NX), jnp.float32)
@@ -353,7 +329,7 @@ def test_sharded_full_sqp_matches_single_device():
 def test_sharded_full_sqp_iter_budget():
     """The traced iteration budget (on-device sqpTimecheck equivalent,
     pcg/sqp.cuh:161-169) caps the sharded solve exactly like sqp_solve's."""
-    from mpcgpu_tpu.parallel.sqp_sharded import sqp_solve_sharded
+    from mpcgpu.parallel.sqp_sharded import sqp_solve_sharded
 
     model, cost, xu, xs, ee = _problem()
     lam = jnp.zeros((N, NX), jnp.float32)
@@ -373,7 +349,7 @@ def test_sharded_full_sqp_iter_budget():
 def test_sharded_full_sqp_other_preconditioners(precond):
     """The knot-sharded SQP supports all three preconditioners (round-1
     restriction removed); equality vs the single-device solver."""
-    from mpcgpu_tpu.parallel.sqp_sharded import sqp_solve_sharded
+    from mpcgpu.parallel.sqp_sharded import sqp_solve_sharded
 
     model, cost, xu, xs, ee = _problem()
     lam = jnp.zeros((N, NX), jnp.float32)
@@ -393,63 +369,10 @@ def test_sharded_full_sqp_other_preconditioners(precond):
                                   np.asarray(ref.pcg_iters))
 
 
-def test_sharded_full_sqp_fused_matches_single_device():
-    """FUSED knot-sharded SQP (slab Pallas KKT+Schur kernel with 2-knot
-    halos, slab dz kernel, slab merit-partials kernel, pipelined PCG)
-    matches the single-device solver — VERDICT r2 item 1: the multi-chip
-    path running single-chip kernel economics."""
-    from mpcgpu_tpu.parallel.sqp_sharded import sqp_solve_sharded
-
-    model, cost, xu, xs, ee = _problem()
-    lam = jnp.zeros((N, NX), jnp.float32)
-    scfg = SQPConfig(max_iter=2)
-    pcfg = PCGConfig(max_iter=60, exit_tol=1e-7)
-    ref = sqp_solve(model, cost, scfg, pcfg, xu, lam, xs, ee, 1e-3, DT,
-                    linsys="pcg")
-    mesh = make_mesh(1, 4)
-    got = sqp_solve_sharded(model, cost, scfg, pcfg, xu, lam, xs, ee, 1e-3,
-                            DT, mesh, fused=True)
-    np.testing.assert_allclose(np.asarray(got.xu), np.asarray(ref.xu),
-                               atol=2e-5)
-    np.testing.assert_array_equal(np.asarray(got.pcg_iters),
-                                  np.asarray(ref.pcg_iters))
-    np.testing.assert_array_equal(np.asarray(got.ls_alpha_idx),
-                                  np.asarray(ref.ls_alpha_idx))
-
-
-def test_sharded_full_sqp_ca_matches_single_device():
-    """FUSED knot-sharded SQP with the s-step CA PCG (one basis-kernel
-    launch + 1 psum + 2 ppermutes per pcg_s_steps iterations) reproduces
-    the single-device solver to f32 monomial-basis rounding (counts within
-    the basis width).  Tolerance: the CA basis reorders the same arithmetic
-    (see _pcg_local_ca), so after 2 warm-started SQP iterations the xu
-    iterates drift slightly more than the per-iteration slab path — measured
-    max |diff| 3.4e-4 / max rel 1.6e-3 on the CPU mesh — hence 1e-3 here vs
-    the per-iteration test's 2e-5."""
-    from mpcgpu_tpu.parallel.sqp_sharded import sqp_solve_sharded
-
-    model, cost, xu, xs, ee = _problem()
-    lam = jnp.zeros((N, NX), jnp.float32)
-    scfg = SQPConfig(max_iter=2)
-    pcfg = PCGConfig(max_iter=60, exit_tol=1e-7)
-    ref = sqp_solve(model, cost, scfg, pcfg, xu, lam, xs, ee, 1e-3, DT,
-                    linsys="pcg")
-    mesh = make_mesh(1, 2)       # L=16 >= 2s+1 at s=4
-    got = sqp_solve_sharded(model, cost, scfg, pcfg, xu, lam, xs, ee, 1e-3,
-                            DT, mesh, fused=True, pcg_method="ca_slab",
-                            pcg_s_steps=4)
-    np.testing.assert_allclose(np.asarray(got.xu), np.asarray(ref.xu),
-                               atol=1e-3)
-    assert abs(int(np.asarray(got.pcg_iters)[0])
-               - int(np.asarray(ref.pcg_iters)[0])) <= 4
-    np.testing.assert_array_equal(np.asarray(got.ls_alpha_idx),
-                                  np.asarray(ref.ls_alpha_idx))
-
-
 def test_sharded_pcg_pipelined_one_row_slab_falls_back():
     """L == 1 (N == knot-axis size): the pipelined form's 2-row halo packets
     cannot exist; method='pipelined' must fall back to classic instead of
-    failing at trace time (ADVICE r3)."""
+    failing at trace time."""
     rng = np.random.default_rng(3)
     n = 4
     blocks = rng.standard_normal((8, n, n))
@@ -486,8 +409,8 @@ def _closed_loop_sharded(method, criterion, tol, steps=10, sqp_iters=2,
     closed-loop chaos — in f32, rounding-level iterate differences amplify
     to ~4% tracking-error divergence over 10 steps even when every solve's
     exit count matches (measured)."""
-    from mpcgpu_tpu.models import dynamics
-    from mpcgpu_tpu.parallel.sqp_sharded import sqp_solve_sharded
+    from mpcgpu.models import dynamics
+    from mpcgpu.parallel.sqp_sharded import sqp_solve_sharded
 
     dtype = jnp.float64
     model = iiwa14(dtype=dtype)
@@ -524,13 +447,12 @@ def _closed_loop_sharded(method, criterion, tol, steps=10, sqp_iters=2,
 
 @pytest.mark.parametrize("tol", [1e-5, 1e-6])
 def test_pipelined_closed_loop_exit_fidelity_rnorm(tol):
-    """VERDICT r3 item 7: the pipelined single-reduction CG's recurrence
+    """The pipelined single-reduction CG's recurrence
     residual must not leak into the rnorm primary criterion at operating
-    tolerances IN THE CLOSED LOOP — classic vs pipelined vs pipelined_slab
-    must produce (near-)equal tracking error and <= 1 iteration count drift
-    per solve."""
+    tolerances IN THE CLOSED LOOP — classic vs pipelined must produce
+    (near-)equal tracking error and <= 1 iteration count drift per solve."""
     ref_err, ref_iters = _closed_loop_sharded("classic", "rnorm", tol)
-    for method in ("pipelined", "pipelined_slab"):
+    for method in ("pipelined",):
         err, iters = _closed_loop_sharded(method, "rnorm", tol)
         assert iters.shape == ref_iters.shape
         assert np.max(np.abs(iters - ref_iters)) <= 1, (
@@ -538,44 +460,3 @@ def test_pipelined_closed_loop_exit_fidelity_rnorm(tol):
         # same iterate path to recurrence-rounding => same tracked trajectory
         assert abs(err - ref_err) <= 1e-3 * max(ref_err, 1.0), (
             method, err, ref_err)
-
-
-def test_two_slab_emulation_matches_single_device():
-    """pcg_solve_two_slab (the single-chip compiled-coverage harness for the
-    pipelined_slab boundary exchange, tools/tpu_smoke.py run_pcg_slab2) must
-    reproduce the plain PCG: nontrivial (r, w, s) packets, off-slab u rows,
-    and corner-block ring-wrap annihilation all exercised."""
-    from mpcgpu_tpu.parallel.pcg_sharded import pcg_solve_two_slab
-
-    model, cost, xu, xs, ee = _problem()
-    kkt = build_kkt(model, cost, xu, xs, ee, DT)
-    schur = form_schur_system(kkt, 1e-3)
-    lam0 = jnp.zeros((N, NX), jnp.float32)
-
-    ref = pcg_solve(schur.S, schur.Pinv, schur.gamma, lam0, max_iter=60,
-                    exit_tol=1e-7)
-    got = pcg_solve_two_slab(schur.S, schur.Pinv, schur.gamma, lam0,
-                             max_iter=60, exit_tol=1e-7, interpret=True)
-    assert int(got.iters) == int(ref.iters)
-    np.testing.assert_allclose(np.asarray(got.lam), np.asarray(ref.lam),
-                               atol=5e-5)
-
-
-def test_two_slab_emulation_converged_exit():
-    """The eta exit must fire identically in the two-slab emulation (the
-    summed two-slab dots ARE the global dots)."""
-    from mpcgpu_tpu.parallel.pcg_sharded import pcg_solve_two_slab
-
-    model, cost, xu, xs, ee = _problem(dtype=jnp.float64)
-    kkt = build_kkt(model, cost, xu, xs, ee, DT)
-    schur = form_schur_system(kkt, 1e-3)
-    lam0 = jnp.zeros((N, NX), jnp.float64)
-
-    ref = pcg_solve(schur.S, schur.Pinv, schur.gamma, lam0, max_iter=300,
-                    exit_tol=1e-12)
-    got = pcg_solve_two_slab(schur.S, schur.Pinv, schur.gamma, lam0,
-                             max_iter=300, exit_tol=1e-12, interpret=True)
-    assert bool(got.converged)
-    assert abs(int(got.iters) - int(ref.iters)) <= 1
-    np.testing.assert_allclose(np.asarray(got.lam), np.asarray(ref.lam),
-                               atol=1e-7)

@@ -5,13 +5,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mpcgpu_tpu.config import CostConfig
-from mpcgpu_tpu.models import iiwa14
-from mpcgpu_tpu.ops.btd import btd_matvec
-from mpcgpu_tpu.ops.pcr import pcr_solve, pcr_solve_refined
-from mpcgpu_tpu.ops.schur import form_schur_system
-from mpcgpu_tpu.solver.kkt import build_kkt
-from mpcgpu_tpu.utils.trajfiles import load_eepos_traj, load_xu_traj
+from mpcgpu.config import CostConfig
+from mpcgpu.models import iiwa14
+from mpcgpu.ops.btd import btd_matvec
+from mpcgpu.ops.pcr import pcr_solve, pcr_solve_refined
+from mpcgpu.ops.schur import form_schur_system
+from mpcgpu.solver.kkt import build_kkt
+from mpcgpu.utils.trajfiles import load_eepos_traj, load_xu_traj
 
 
 def _schur(N, dtype):
@@ -41,7 +41,7 @@ def test_pcr_exact_f64(N):
 def test_pcr_refined_beats_capped_pcg_f32():
     """PCR + 1 refinement achieves a smaller true residual in f32 than the
     tuned-cap stair PCG (the reference's operating point)."""
-    from mpcgpu_tpu.ops.pcg import pcg_solve
+    from mpcgpu.ops.pcg import pcg_solve
 
     schur = _schur(64, jnp.float32)
     lam0 = jnp.zeros_like(schur.gamma)
@@ -81,29 +81,10 @@ def test_pcr_random_spd_btd():
     np.testing.assert_allclose(np.asarray(x), ref, rtol=1e-8, atol=1e-9)
 
 
-def test_pcr_pallas_matches_xla(monkeypatch):
-    """Pallas PCR kernel (interpret) == XLA PCR in f64; close in f32 at
-    small N (f32 rounding paths diverge on ill-conditioned large systems)."""
-    from mpcgpu_tpu.ops.pcr_pallas import pcr_solve_pallas
-
-    schur = _schur(16, jnp.float64)
-    a = pcr_solve_refined(schur.S, schur.gamma, refine=1)
-    b = pcr_solve_pallas(schur.S, schur.gamma, refine=1, interpret=True)
-    np.testing.assert_allclose(np.asarray(b), np.asarray(a), rtol=1e-8,
-                               atol=1e-10)
-
-    schur32 = _schur(16, jnp.float32)
-    x = pcr_solve_pallas(schur32.S, schur32.gamma, refine=1, interpret=True)
-    res = _true_residual(schur32.S, x, schur32.gamma)
-    assert res < 1e-3 * max(1.0, float(jnp.max(jnp.abs(schur32.gamma))))
-
-
-def test_pcr_pallas_sqp_path():
-    """linsys='pcr_pallas' runs the whole SQP solve (interpret on CPU)."""
-    from mpcgpu_tpu.config import CostConfig, PCGConfig, SQPConfig
-    from mpcgpu_tpu.models import iiwa14
-    from mpcgpu_tpu.solver.sqp import sqp_solve
-    from mpcgpu_tpu.utils.trajfiles import load_eepos_traj, load_xu_traj
+def test_pcr_sqp_path():
+    """linsys='pcr' runs the whole SQP solve."""
+    from mpcgpu.config import CostConfig, PCGConfig, SQPConfig
+    from mpcgpu.solver.sqp import sqp_solve
 
     N = 16
     model = iiwa14()
@@ -111,7 +92,6 @@ def test_pcr_pallas_sqp_path():
     ee = jnp.asarray(load_eepos_traj("0_0")[:N], jnp.float32)
     res = sqp_solve(model, CostConfig.for_knots(N), SQPConfig(max_iter=3),
                     PCGConfig(), xu, jnp.zeros((N, 14), jnp.float32),
-                    xu[0, :14], ee, 1e-3, 1 / 64.0, linsys="pcr_pallas",
-                    merit_impl="pallas")
+                    xu[0, :14], ee, 1e-3, 1 / 64.0, linsys="pcr")
     assert np.isfinite(np.asarray(res.xu)).all()
     assert int(res.sqp_iters) == 3

@@ -15,9 +15,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from mpcgpu_tpu.models import dynamics
-from mpcgpu_tpu.models.chain import planar_arm
-from mpcgpu_tpu.models.urdf import _rpy_matrix, load_urdf
+from mpcgpu.models import dynamics
+from mpcgpu.models.chain import planar_arm
+from mpcgpu.models.urdf import _rpy_matrix, load_urdf
 
 jax.config.update("jax_enable_x64", True)
 
@@ -229,8 +229,8 @@ def test_fixed_link_mass_lumping():
 
 def test_urdf_model_through_solver():
     """A URDF-loaded robot runs the full SQP stack (joint-space cost)."""
-    from mpcgpu_tpu.config import CostConfig, PCGConfig, SQPConfig
-    from mpcgpu_tpu.solver.sqp import sqp_solve
+    from mpcgpu.config import CostConfig, PCGConfig, SQPConfig
+    from mpcgpu.solver.sqp import sqp_solve
 
     model = load_urdf(_planar_urdf(3), dtype=jnp.float32)
     N, nx, nu = 16, 6, 3
@@ -256,8 +256,8 @@ def test_export_import_roundtrip_iiwa14():
     """export_urdf(iiwa14()) -> load_urdf reproduces the PRODUCTION model:
     every RobotModel tensor (including the baked ee transform and the real
     90-degree inter-joint frame rotations) and the recorded-trace dynamics."""
-    from mpcgpu_tpu.models import iiwa14
-    from mpcgpu_tpu.models.urdf import export_urdf
+    from mpcgpu.models import iiwa14
+    from mpcgpu.models.urdf import export_urdf
 
     want = iiwa14(dtype=jnp.float64)
     text = export_urdf(want, name="iiwa14")
@@ -280,7 +280,7 @@ def test_export_import_roundtrip_iiwa14():
 
 def test_ee_link_with_downstream_movable_joint_rejected():
     """ee_link followed by a movable joint has no fixed offset from the last
-    joint frame; must raise, not silently return the chain tip (ADVICE r3)."""
+    joint frame; must raise, not silently return the chain tip."""
     import pytest
 
     with pytest.raises(ValueError, match="downstream"):

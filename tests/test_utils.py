@@ -4,8 +4,8 @@ CSR packing round-trip through the experiment utilities (SURVEY.md section 5).""
 import numpy as np
 import jax.numpy as jnp
 
-from mpcgpu_tpu.utils.checkpoint import load_mpc_state, save_mpc_state
-from mpcgpu_tpu.utils.profiling import WallTimer, time_jitted
+from mpcgpu.utils.checkpoint import load_mpc_state, save_mpc_state
+from mpcgpu.utils.profiling import WallTimer, time_jitted
 
 
 def test_checkpoint_roundtrip(tmp_path):
@@ -36,10 +36,10 @@ def test_walltimer_and_time_jitted():
 
 def test_resume_continues_mpc(tmp_path):
     """Save mid-run warm-start state, resume, and keep tracking."""
-    from mpcgpu_tpu.config import PCGConfig, SQPConfig
-    from mpcgpu_tpu.models import iiwa14
-    from mpcgpu_tpu.solver.sqp import sqp_solve
-    from mpcgpu_tpu.utils.trajfiles import load_eepos_traj, load_xu_traj
+    from mpcgpu.config import PCGConfig, SQPConfig
+    from mpcgpu.models import iiwa14
+    from mpcgpu.solver.sqp import sqp_solve
+    from mpcgpu.utils.trajfiles import load_eepos_traj, load_xu_traj
 
     model = iiwa14()
     N = 16
@@ -61,22 +61,48 @@ def test_resume_continues_mpc(tmp_path):
 
 
 def CostConfig_for(N):
-    from mpcgpu_tpu.config import CostConfig
+    from mpcgpu.config import CostConfig
 
     return CostConfig.for_knots(N)
 
 
-def test_tpu_tuned_cap_table():
-    """The TPU-retuned cap table (round-5 tune_pcg_caps closed loops)
-    overrides only the horizons where retuning WON (32, 64) and falls back
-    to the reference caps elsewhere — the N=128 sweep was a measured
-    negative (PARITY.md)."""
-    from mpcgpu_tpu.config import PCGConfig
+def test_reference_cap_table():
+    """The per-horizon PCG caps are the reference's settings.cuh:124-144
+    values, with 200 for horizons it does not list."""
+    from mpcgpu.config import PCGConfig
 
-    assert PCGConfig.tuned_max_iter_tpu(32) == 40
-    assert PCGConfig.tuned_max_iter_tpu(64) == 80
-    for n in (128, 256, 512, 1024):
-        assert PCGConfig.tuned_max_iter_tpu(n) == PCGConfig.tuned_max_iter(n)
-    # the reference table itself is the settings.cuh:124-144 values
     assert [PCGConfig.tuned_max_iter(n) for n in (32, 64, 128, 256, 512)] \
         == [173, 167, 167, 118, 67]
+    assert PCGConfig.tuned_max_iter(16) == 200
+
+
+def test_busy_ns_is_the_union_of_intervals():
+    from mpcgpu.utils.profiling import TraceEvent, busy_ns
+
+    ev = [TraceEvent("a", 0, 10), TraceEvent("b", 5, 10),   # overlap -> 15
+          TraceEvent("c", 30, 5), TraceEvent("d", 31, 2),   # nested -> 5
+          TraceEvent("e", 35, 1)]                           # touching -> 1
+    assert busy_ns(ev) == 21
+    assert busy_ns([]) == 0
+
+
+def test_reduce_trace_counts():
+    """Idle share, kernels (copies excluded), device-to-host copies by name
+    or by destination, and CUDA-graph launches from the host."""
+    from mpcgpu.utils.profiling import TraceEvent, reduce_trace
+
+    dev = [TraceEvent("loop_fusion", 0, 40),
+           TraceEvent("MemcpyD2H", 50, 10),
+           TraceEvent("MemcpyD2D", 70, 10,
+                      "kind_src:device kind_dst:device size:4"),
+           TraceEvent("pcg_solve_pallas", 80, 20),
+           TraceEvent("memcpy", 100, 0,
+                      "kind_src:device kind_dst:pinned size:1")]
+    host = [TraceEvent("cuGraphLaunch (CudaGraph:7)", 0, 3),
+            TraceEvent("command_buffer", 0, 5)]
+    r = reduce_trace(dev, host)
+    assert r["window_ns"] == 100 and r["busy_ns"] == 80
+    assert abs(r["idle_share"] - 0.2) < 1e-12
+    assert r["kernels"] == 3
+    assert r["d2h_copies"] == 2
+    assert r["graph_launches"] == 1

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Diagnose the cap-bound rnorm exit regime (VERDICT r4, missing #1).
+"""Diagnose the cap-bound rnorm exit regime.
 
-Round-4 silicon data shows PCG hitting its max-iter cap on EVERY warm-chain
-solve under the reference exit criterion ||r||_2 < tol (mean iters == cap at
+Under the absolute exit criterion ||r||_2 < tol, PCG hits its max-iter cap
+on every warm-chain solve at the reference tolerances (mean iters == cap at
 all tuned horizons) — a regime the reference itself flags as unhealthy
 (mpcsim.cuh:382-387: live warning when >50% of solves exit on max-iter).
 
@@ -17,11 +17,10 @@ host PCG per sample in BOTH f32 and f64, recording per iteration:
 and prints, per sample: ||gamma||, the f32 true-residual floor, and the
 iteration count needed to reach a grid of tolerances under each criterion —
 exactly the data needed to decide whether the reference's GPU-tuned
-(tol, cap) tables are reachable in f32 on this problem scaling, and what a
-TPU-tuned table should be.
+(tol, cap) tables are reachable in f32 on this problem scaling.
 
 Run on CPU (fast, f64 available):
-  JAX_PLATFORMS=cpu PYTHONPATH=/root/repo python tools/diagnose_rnorm.py
+  JAX_PLATFORMS=cpu PYTHONPATH=. python tools/diagnose_rnorm.py
 """
 
 from __future__ import annotations
@@ -89,12 +88,12 @@ def main():
     ap.add_argument("--iters", type=int, default=600)
     args = ap.parse_args()
 
-    from mpcgpu_tpu.config import CostConfig, PCGConfig, SQPConfig
-    from mpcgpu_tpu.models import iiwa14
-    from mpcgpu_tpu.ops.schur import form_schur_system
-    from mpcgpu_tpu.solver.kkt import build_kkt
-    from mpcgpu_tpu.solver.sqp import sqp_solve
-    from mpcgpu_tpu.utils.trajfiles import load_eepos_traj, load_xu_traj
+    from mpcgpu.config import CostConfig, PCGConfig, SQPConfig
+    from mpcgpu.models import iiwa14
+    from mpcgpu.ops.schur import form_schur_system
+    from mpcgpu.solver.kkt import build_kkt
+    from mpcgpu.solver.sqp import sqp_solve
+    from mpcgpu.utils.trajfiles import load_eepos_traj, load_xu_traj
 
     N = args.knots
     dtype = jnp.float32

@@ -21,7 +21,7 @@ Every entry of X_k(q) / Xhom_k(q) is therefore affine in (sin q_k, cos q_k):
     X_k(q) = Xc_k + sin(q_k) * Xs_k + cos(q_k) * Xcos_k
 
 This script parses those numeric constants (model *data*, not code) and emits
-``mpcgpu_tpu/models/_iiwa14_data.py`` with the stacked constant tensors, from
+``mpcgpu/models/_iiwa14_data.py`` with the stacked constant tensors, from
 which the JAX dynamics are built. Run:
 
     python tools/extract_grid_model.py
@@ -34,7 +34,7 @@ from pathlib import Path
 import numpy as np
 
 REF = Path("/root/reference/include/dynamics/iiwa/iiwa_eepos_grid.cuh")
-OUT = Path(__file__).resolve().parent.parent / "mpcgpu_tpu" / "models" / "_iiwa14_data.py"
+OUT = Path(__file__).resolve().parent.parent / "mpcgpu" / "models" / "_iiwa14_data.py"
 
 NQ = 7
 

@@ -15,7 +15,7 @@ framework runs standalone when the reference checkout is absent:
 Writes data/trajfiles/{s}_{g}_traj.csv and {s}_{g}_eepos.traj for every
 start/goal pair requested (default: the full 5x5 grid the reference driver
 iterates, track_iiwa_pcg.cu:39-44).  Loader preference order (per file):
-$MPCGPU_TPU_TRAJDIR > /root/reference trajfiles > data/trajfiles
+$MPCGPU_TRAJDIR > /root/reference trajfiles > data/trajfiles
 (utils/trajfiles.py::_find).
 """
 
@@ -29,7 +29,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import jax
 import jax.numpy as jnp
 
-from mpcgpu_tpu.models import dynamics, iiwa14
+from mpcgpu.models import dynamics, iiwa14
 
 OUT = Path(__file__).resolve().parent.parent / "data" / "trajfiles"
 STEPS = 666
